@@ -1,0 +1,163 @@
+"""The port's model and serving engine against the JAX package's.
+
+Reduced glm4-9b with four layers, so that each of the two layer groups
+stacks two. The JAX init draws the weights from one key; ``params_from_jax``
+carries them into the port. The JAX side runs the Pallas attention kernel
+in interpret mode; the port runs on the CPU, where the kernel is its plain
+version.
+
+The JAX side runs with ``jax.disable_jit()``: compiled, XLA fuses the layer
+scan and drops some of the bf16 roundings that the model's code writes
+(the logits of reduced glm4-9b then move by up to about 0.05). Op by op,
+the two packages round at the same places, and the logits are held at the
+f32 tolerance of the JAX kernel tests, 2e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.core import analysis as janalysis
+from repro.models.model import Model as JModel
+from repro.serve import engine as jengine
+from repro_torch.configs import get_arch
+from repro_torch.core import analysis
+from repro_torch.launch import serve as launcher
+from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import Model
+from repro_torch.serve import engine as tengine
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+CTX = 64
+
+
+def _seeded_init(jmodel, key):
+    """``jmodel.init(key)`` with the layer stacks drawn again from keys that
+    depend on ``key`` alone, by the reference's own per-layer init.
+    ``Model.init`` folds ``hash(<stack name>)`` into each group's key, and
+    Python salts ``str`` hashes per process, so its layer weights differ
+    from one test process to the next."""
+    params = jmodel.init(key)
+    for gi, g in enumerate(jmodel.groups):
+        assert g.kind == "attn_mlp", g.kind
+        keys = jax.random.split(jax.random.fold_in(key, 1000 + gi), g.n_layers)
+        params[g.name] = {"layers": jax.vmap(lambda r: jmodel._layer_init(r, g.kind))(keys)}
+    return params
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX cfg, plan, model, params; port cfg, plan, state dict)."""
+    jcfg = dataclasses.replace(jget_arch("glm4-9b").reduced(), n_layers=4)
+    jplan = janalysis.build_plan(jcfg, None, n_groups=2)
+    jmodel = JModel(jcfg, jplan, interpret=True)
+    params = _seeded_init(jmodel, jax.random.key(0))
+    tcfg = dataclasses.replace(get_arch("glm4-9b").reduced(), n_layers=4)
+    tplan = analysis.build_plan(tcfg, None, n_groups=2)
+    state = params_from_jax(jax.tree.map(np.asarray, params))
+    return jcfg, jplan, jmodel, params, tcfg, tplan, state
+
+
+def test_plan_and_groups_match(pair):
+    jcfg, jplan, jmodel, _, tcfg, tplan, _ = pair
+    assert tcfg == dataclasses.replace(tcfg, **dataclasses.asdict(jcfg))
+    assert [dataclasses.asdict(u) for u in tplan.units] == \
+        [dataclasses.asdict(u) for u in jplan.units]
+    tmodel = Model(tcfg, tplan, device="cpu")
+    assert [(g.name, g.kind, g.n_layers) for g in tmodel.groups] == \
+        [(g.name, g.kind, g.n_layers) for g in jmodel.groups] == \
+        [("g0", "attn_mlp", 2), ("g1", "attn_mlp", 2)]
+
+
+def test_params_from_jax_carries_every_weight(pair):
+    _, _, _, params, tcfg, tplan, state = pair
+    model = Model(tcfg, tplan, device="cpu", params=state)  # strict load
+    got = model.state_dict()
+    np.testing.assert_array_equal(
+        got["g1.layers.1.attn.wq"].float().numpy(),
+        np.asarray(params["g1"]["layers"]["attn"]["wq"][1].astype(jnp.bfloat16), np.float32))
+    assert got["g0.layers.0.norm_attn.scale"].dtype == torch.float32
+    assert got["unembed.kernel"].dtype == torch.bfloat16
+
+
+def test_forward_logits_at_every_position(pair, rng):
+    _, _, jmodel, params, tcfg, tplan, state = pair
+    model = Model(tcfg, tplan, device="cpu", params=state)
+    tokens = rng.integers(0, tcfg.vocab, size=(2, 11)).astype(np.int32)
+    with jax.disable_jit():
+        jlog, _, _ = jmodel.forward(params, {"tokens": jnp.asarray(tokens)})
+    tlog, raw = model(torch.from_numpy(tokens).long())
+    assert raw == {} and tlog.shape == (2, 11, model.vp)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
+
+
+def test_prefill_and_decode_logits(pair, rng):
+    """Prefill logits and three decode steps (same tokens fed to both)."""
+    _, _, jmodel, params, tcfg, tplan, state = pair
+    model = Model(tcfg, tplan, device="cpu", params=state)
+    tokens = rng.integers(0, tcfg.vocab, size=(2, 13)).astype(np.int32)
+    with jax.disable_jit():
+        jlog, jcache = jmodel.prefill(params, {"tokens": jnp.asarray(tokens)}, ctx_len=CTX)
+    tlog, tcache = model.prefill(torch.from_numpy(tokens).long(), ctx_len=CTX)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
+    for step in range(3):
+        nxt = np.array(jnp.argmax(jlog[:, : tcfg.vocab], -1), np.int32)[:, None]
+        pos = np.full((2, 1), tokens.shape[1] + step, np.int32)
+        with jax.disable_jit():
+            jlog, jcache = jmodel.decode_step(params, jcache, jnp.asarray(nxt), jnp.asarray(pos))
+        tlog, tcache = model.decode_step(
+            tcache, torch.from_numpy(nxt).long(), torch.from_numpy(pos).long())
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
+    assert tlog.dtype == torch.float32 and tlog.shape == (2, model.vp)
+
+
+def test_engine_greedy_tokens_match(pair):
+    """3 requests over 2 slots, prompts of 8-24 tokens, 6 new tokens each:
+    the port's engine gives the JAX engine's greedy tokens, token for token."""
+    jcfg, jplan, _, params, tcfg, tplan, state = pair
+    lens = np.random.default_rng(1).integers(8, 25, size=3)
+    prompts = [np.random.default_rng(2 + i).integers(0, tcfg.vocab, size=n).astype(np.int32)
+               for i, n in enumerate(lens)]
+    jeng = jengine.Engine(jcfg, jplan, params, jengine.ServeConfig(slots=2, ctx_len=CTX),
+                          interpret=True)
+    teng = tengine.Engine(tcfg, tplan, state, tengine.ServeConfig(slots=2, ctx_len=CTX),
+                          device="cpu")
+    for i, p in enumerate(prompts):
+        jeng.submit(jengine.Request(request_id=i, prompt=p, max_new_tokens=6))
+        teng.submit(tengine.Request(request_id=i, prompt=p, max_new_tokens=6))
+    with jax.disable_jit():
+        want = [(r.request_id, r.output) for r in jeng.run_until_done()]
+    got = [(r.request_id, r.output) for r in teng.run_until_done()]
+    assert got == want
+    assert all(len(out) == 6 for _, out in got)
+    assert len(teng.prefill_s) == 3 and teng.decode_tokens == 3 * 5
+
+
+def test_entry_points_need_the_card_by_default(pair, monkeypatch):
+    """Without a GPU the default device raises; nothing carries on on the CPU."""
+    _, _, _, _, tcfg, tplan, state = pair
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(tcfg, tplan)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tengine.Engine(tcfg, tplan, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.build_engine("glm4-9b")
+
+
+def test_launcher_serves_on_the_cpu_when_asked():
+    stats = launcher.main(["--arch", "glm4-9b", "--device", "cpu", "--requests", "3",
+                           "--slots", "2", "--prompt-len", "10", "--max-new", "4"])
+    assert stats["requests"] == 3 and stats["tokens"] == 12
+    assert stats["peak_mem_gb"] is None  # read only on a CUDA device
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mamba2-1.3b", "gemma2-27b"])
+def test_unported_group_kinds_raise(arch):
+    cfg = get_arch(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(cfg, analysis.build_plan(cfg, None, n_groups=2), device="cpu")
