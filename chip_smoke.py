@@ -9,16 +9,22 @@ raises on failure (the script then exits non-zero and prints no result):
 1. the environment: card name and power limit, torch, CUDA and nvcc;
 2. build every kernel of the port from ``src/repro_torch/kernels/csrc``;
 3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shape and on a small grid of the options it takes, and time
-   the kernel, the plain version and one library call of the same function;
-4. serve glm4-9b at its published widths through
-   ``repro_torch.launch.serve``: 8 requests, 4 slots, prompts of 128-2048
-   tokens, 32 new tokens each, with the kernels' launch counts read around
-   the run; time and trace one 2048-token prefill and one decode step of
-   the served model (``torch.profiler``: device busy share, top kernels);
-   then check a two-layer full-width model's prefill logits on the
-   card against the same weights on the CPU, where every kernel is its
-   plain version;
+   main paths' shapes and on a small grid of the options it takes, and
+   time the kernel, the plain version and one library call of the same
+   function: flash attention (tolerances below) and the MoE row gather
+   (``torch.equal``: it is a copy), with ``moe_permute``'s backward;
+4. serve each model of ``ARCHS`` at its published widths and depth
+   through ``repro_torch.launch.serve`` (glm4-9b, then moonshot-v1-16b-a3b,
+   whose MoE layers dispatch and combine through the gather kernel): 8
+   requests, 4 slots, prompts of 128-2048 tokens, 32 new tokens each, with
+   every kernel's launch count set to 0 before the run and read after it;
+   time and trace one 2048-token prefill and one decode step of the served
+   model (``torch.profiler``: device busy share, top kernels); then check a
+   two-layer full-width model's prefill logits on the card against the
+   same weights on the CPU, where every kernel is its plain version (for
+   the MoE model, after checking that both routers choose the same
+   experts on the same input, and reporting where the two runs chose
+   others);
 5. one JSON line of the kernels, the card line, and last the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -41,11 +47,15 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-ARCH = "glm4-9b"
+ARCHS = ("glm4-9b", "moonshot-v1-16b-a3b")  # the main paths, each served in turn
 N_REQUESTS, SLOTS, MAX_NEW, CTX_LEN = 8, 4, 32, 4096
 PROMPT_LENS = (128, 2048)
 # The main path's attention shape: one 2048-token glm4-9b prefill.
 MAIN = dict(B=1, S=2048, H=32, K=2, D=128, dtype=torch.bfloat16)
+# The gather's main shapes are those of one prefill of the longest prompt
+# in the MoE model (moonshot-v1-16b-a3b: dispatch reads 2048 tokens into
+# 64 experts x 241 slots, combine reads the slots back into 2048 x 6 rows).
+MOE_ARCH = ARCHS[1]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # atol = rtol, as the JAX kernel tests
 ROW_TOL = 1e-2  # bf16 relative L2 error of one output row; one ulp is at most 2^-7
 # The profile phase: one prefill of the longest prompt, decode steps over
@@ -84,6 +94,10 @@ def environment() -> None:
         f"python {sys.version.split()[0]}, nvcc: {nvcc}")
     log(f"[env] device 0: {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} visible")
+    # float32 products in full float32: the MoE router's top-k and capacity
+    # drops would move with TF32's rounding.
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls are set to round through TF32")
 
 
 def build() -> None:
@@ -253,24 +267,167 @@ def check_flash_attention() -> dict:
     }
 
 
+def _equal(got, want, what: str) -> float:
+    """Raises unless the kernel's output equals its plain version's, bit for
+    bit; returns max |got - want| (0.0)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        bad = (got != want).sum() if got.shape == want.shape else "shape"
+        raise AssertionError(f"gather_rows {what}: kernel differs from its plain version ({bad})")
+    return float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+
+
+def _gather_grid(gen):
+    """(name, src, idx) cases on the options the kernel takes."""
+    def src(G, N, d, dt):
+        return torch.randn((G, N, d), generator=gen, device="cuda").to(dt)
+
+    def idx(G, M, lo, hi):
+        return torch.randint(lo, hi, (G, M), generator=gen, device="cuda", dtype=torch.int32)
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        cases += [
+            (f"d=1 M=29 {name}", src(3, 37, 1, dt), idx(3, 29, -1, 37)),
+            (f"d=80 M=45 {name}", src(3, 50, 80, dt), idx(3, 45, -1, 50)),
+            (f"d=2048 M=101 {name}", src(3, 64, 2048, dt), idx(3, 101, -1, 64)),
+            (f"every index -1 {name}", src(3, 64, 2048, dt), torch.full(
+                (3, 101), -1, dtype=torch.int32, device="cuda")),
+            (f"indices >= N {name}", src(3, 20, 80, dt), idx(3, 33, -1, 30)),
+            (f"rows 16-byte unaligned {name}", src(3, 40, 65, dt)[:, :, 1:], idx(3, 50, -1, 40)),
+            (f"strided rows {name}", src(3, 80, 256, dt)[:, ::2], idx(3, 50, -1, 40)),
+        ]
+        nan_src = src(3, 40, 128, dt)
+        nan_src[:, 1::2] = float("nan")  # odd rows, which no index reads
+        cases.append((f"NaN rows unread {name}", nan_src, 2 * idx(3, 50, 0, 20)))
+    return cases
+
+
+def gather_bound_ms(src, idx):
+    """Least time for the same work, bound by bytes: the indices read, each
+    source row that an index names read once (indices past N name the last
+    row) and every output row written once, over the memory rate."""
+    row = src.shape[2] * src.element_size()
+    named = torch.unique(idx[idx >= 0].clamp_max(src.shape[1] - 1)).numel()
+    nbytes = idx.numel() * 4 + named * row + idx.numel() * row
+    return 1e3 * nbytes / PEAK_BYTES, nbytes
+
+
+def _permute_grad(device, x, bs, ts, fs, k, c, r):
+    """d/dx of sum(r * combine(c * dispatch(x))) through ops.moe_permute."""
+    from repro_torch.kernels import ops
+
+    x = x.detach().to(device).requires_grad_()
+    bs, ts, fs, c, r = (t.to(device) for t in (bs, ts, fs, c, r))
+    y = ops.moe_permute(ops.moe_permute(x, bs, ts, k) * c, ts, fs, 1)
+    (y * r).sum().backward()
+    return x.grad
+
+
+def check_gather_rows() -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    err = 0.0
+    for name, src, idx in _gather_grid(gen):
+        err = max(err, _equal(gr.gather_rows(src, idx), gr.gather_rows_plain(src, idx), name))
+        log(f"[kernel] gather_rows {name}: src {tuple(src.shape)} strides {src.stride()} "
+            f"idx {tuple(idx.shape)}: equal")
+
+    # moe_permute's backward (a gather by inv_idx, then a sum over k_inv)
+    # through the kernel, against the plain version on the CPU: the same
+    # gathers and sums, elementwise factors only, so the gradients are equal.
+    G, T, k, E, d = 2, 40, 2, 4, 64
+    cap = moe.capacity(T, k, E)
+    eids = torch.stack([torch.topk(torch.rand((T, E), generator=gen, device="cuda"), k).indices
+                        for _ in range(G)])
+    eids[1, :, 0] = 0  # group 1 overflows expert 0: some assignments drop
+    bs, ts, fs = (torch.stack(v) for v in zip(*(moe.route(e, E, cap) for e in eids)))
+    x = torch.randn((G, T, d), generator=gen, device="cuda")
+    c = torch.randn((G, E * cap, d), generator=gen, device="cuda")
+    r = torch.randn((G, T * k, d), generator=gen, device="cuda")
+    launches = gr.launches
+    got = _permute_grad("cuda", x, bs, ts, fs, k, c, r)
+    if gr.launches - launches != 4:
+        raise AssertionError(f"moe_permute forward and backward launched {gr.launches - launches}")
+    want = _permute_grad("cpu", x, bs, ts, fs, k, c, r)
+    if not (ts < 0).any() or not torch.equal(got.cpu(), want):
+        raise AssertionError("moe_permute backward through the kernel differs from the plain version")
+    log(f"[kernel] moe_permute backward G={G} T={T} k={k} E={E} cap={cap} d={d} f32, "
+        f"{int((ts < 0).sum())} assignments dropped: equal to the plain version")
+
+    cfg = get_arch(MOE_ARCH)
+    T, E, k, d = PROMPT_LENS[1], cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model
+    # The main path's index vectors: a real route of a random top-k routing.
+    probs = torch.softmax(torch.randn((T, E), generator=gen, device="cuda"), dim=-1)
+    cap = moe.capacity(T, k, E)
+    buf_src, tok_slots, _ = (i[None] for i in moe.route(torch.topk(probs, k).indices, E, cap))
+    x = torch.randn((1, T, d), generator=gen, device="cuda")
+    yb = torch.randn((1, E * cap, d), generator=gen, device="cuda")
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    for what, src32, idx in (("dispatch", x, buf_src), ("combine", yb, tok_slots)):
+        for dt in (torch.float32, torch.bfloat16):
+            src = src32.to(dt)
+            err = max(err, _equal(gr.gather_rows(src, idx), gr.gather_rows_plain(src, idx),
+                                  f"{what} main shape {str(dt)[6:]}"))
+        src = src32.to(torch.bfloat16)
+        ms = time_ms(lambda: gr.gather_rows(src, idx), reps=50)
+        plain_ms = time_ms(lambda: gr.gather_rows_plain(src, idx), reps=50)
+        # Yardstick only, never called by the port: PyTorch's row gather of
+        # the same rows, zeroed where the index is -1.
+        i0 = idx[0]
+        library_ms = time_ms(lambda: torch.index_select(src[0], 0, i0.clamp_min(0)).masked_fill_(
+            i0[:, None] < 0, 0), reps=50)
+        bound_ms, nbytes = gather_bound_ms(src, idx)
+        for key, val in zip(total, (ms, plain_ms, bound_ms, library_ms)):
+            total[key] += val
+        log(f"[kernel] gather_rows {what} main shape: src {tuple(src.shape)} bf16, idx "
+            f"{tuple(idx.shape)} ({int((idx < 0).sum())} of -1), E={E} cap={cap}: equal in "
+            f"f32 and bf16; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, bytes)")
+    return {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gather_rows.cu",
+        "replaces": "src/repro/kernels/gather_rows.py:31",
+        "launches": None,  # filled from the main paths' runs
+        "max_abs_err": err,
+        # one dispatch plus one combine, as one MoE layer of a 2048-token prefill runs them
+        "ms": total["ms"],
+        "plain_ms": total["plain_ms"],
+        "bound_ms": total["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": total["library_ms"],
+    }
+
+
 # ---------------------------------------------------------------------------
-# 4: the main path
+# 4: the main paths
 # ---------------------------------------------------------------------------
 
 
-def serve_full_width() -> dict:
+def serve_full_width(arch: str) -> dict:
+    """Serve ``arch`` at full width; returns each kernel's launches in the run."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_rows as gr
     from repro_torch.launch import serve as launcher
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = launcher.build_engine(
-        ARCH, full_width=True, ctx_len=CTX_LEN, slots=SLOTS, device="cuda", seed=SEED
+        arch, full_width=True, ctx_len=CTX_LEN, slots=SLOTS, device="cuda", seed=SEED
     )
     torch.cuda.synchronize()
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
+    moe = (f", MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+           f"{cfg.moe.shared_experts} shared" if cfg.moe else "")
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}{moe}, "
         f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     lens = np.random.default_rng(SEED).integers(
@@ -278,34 +435,43 @@ def serve_full_width() -> dict:
     )
     reqs = launcher.random_requests(cfg.vocab, lens.tolist(), MAX_NEW, SEED)
 
-    fa.launches = 0
+    fa.launches = gr.launches = 0
     stats = launcher.serve(engine, reqs)
-    launches = fa.launches
+    launches = {"flash_attention": fa.launches, "gather_rows": gr.launches}
 
     done = stats["done"]
-    prefills = len(engine.prefill_s)
+    prefills, steps = len(engine.prefill_s), stats["decode_steps"]
     if len(done) != N_REQUESTS or prefills != N_REQUESTS:
         raise AssertionError(f"{len(done)} of {N_REQUESTS} requests done, {prefills} prefills")
     for r in done:
         if len(r.output) != MAX_NEW or not all(0 <= t < cfg.vocab for t in r.output):
             raise AssertionError(f"request {r.request_id}: output {r.output}")
-    if launches != cfg.n_layers * prefills:
-        raise AssertionError(
-            f"flash_attention launched {launches} times in the run, "
-            f"want {cfg.n_layers} x {prefills} prefills"
-        )
+    # Every prefill runs each layer's attention through the flash kernel;
+    # every prefill and decode step runs each MoE layer's dispatch and
+    # combine through the gather kernel.
+    want = {
+        "flash_attention": cfg.n_layers * prefills,
+        "gather_rows": 2 * cfg.n_layers * (prefills + steps) if cfg.moe else 0,
+    }
+    if launches != want:
+        raise AssertionError(f"kernel launches in the run {launches}, want {want} "
+                             f"({cfg.n_layers} layers, {prefills} prefills, {steps} decode steps)")
     pre = ", ".join(f"{n}:{ms:.1f}" for n, ms in zip(lens.tolist(), stats["prefill_ms"]))
     log(f"[serve] {len(done)} requests, {stats['tokens']} tokens in {stats['wall_s']:.2f} s; "
-        f"flash_attention launches {launches} = {cfg.n_layers} x {prefills} prefills")
+        f"{prefills} prefills, {steps} decode steps; flash_attention launches "
+        f"{launches['flash_attention']} = {cfg.n_layers} x {prefills} prefills; gather_rows "
+        f"launches {launches['gather_rows']}"
+        + (f" = 2 x {cfg.n_layers} x ({prefills} + {steps})" if cfg.moe else ""))
     log(f"[serve] prefill ms per prompt (tokens:ms, host clock to the first token): {pre}")
     log(f"[serve] decode {stats['decode_tokens']} tokens at {stats['decode_tok_s']:.1f} tok/s "
         f"over {SLOTS} slots; peak device memory {stats['peak_mem_gb']:.2f} GB")
     for r in done[:2]:
         log(f"[serve]   req{r.request_id} ({len(r.prompt)} prompt tokens): {r.output[:8]} ...")
+    engine.cache = None  # the profile below makes a cache of its own
     profile(engine)
     del engine
     torch.cuda.empty_cache()
-    return {"launches": launches, "prefills": prefills}
+    return launches
 
 
 def _trace(fn, label: str) -> None:
@@ -360,30 +526,95 @@ def profile(engine) -> None:
     _trace(decode, "decode trace")
 
 
-def check_logits_against_cpu() -> None:
-    """Prefill logits of a two-layer glm4-9b at full width on the card
+def _routing(model) -> list:
+    """Hooks that record, for every MoE layer of ``model`` in its next
+    forward, the layer's input (T, d) and its router's probabilities (T, E)
+    and chosen experts (T, k), with the MoE module itself."""
+    from repro_torch.models.moe import MoE
+
+    seen = []
+
+    def hook(mod, args, out):
+        x = args[0].flatten(0, 1)
+        probs, _, eids = mod.gate(x)
+        seen.append((mod, x, probs.cpu(), eids.cpu()))
+
+    for m in model.modules():
+        if isinstance(m, MoE):
+            m.register_forward_hook(hook)
+    return seen
+
+
+def _gap(probs, k: int) -> float:
+    """A token's gap between its k-th and (k+1)-th router probability."""
+    p = probs.sort(descending=True).values
+    return float(p[k - 1] - p[k])
+
+
+def _check_routing(gpu_seen: list, cpu_seen: list, k: int) -> None:
+    """Every MoE layer's router on the CPU, given the card's input to that
+    layer, chooses the same set of k experts as on the card for every
+    token: float32 routing on both, no TF32. (The order within a token's k
+    routes nothing: capacity slots go by expert, then by token.) Then the
+    two prefills, each on its own hidden states, are compared and every
+    token whose set differs is printed with its probability gap at the
+    k-th expert on both devices: the hidden states of the two devices
+    differ by a few bf16 ulps after a layer, which moves near ties."""
+    if len(gpu_seen) != len(cpu_seen) or not gpu_seen:
+        raise AssertionError(f"routing of {len(gpu_seen)} and {len(cpu_seen)} MoE layers")
+    rows = reordered = 0
+    flips = []
+    for layer, ((_, x, gp, ge), (cpu_moe, _, wp, we)) in enumerate(zip(gpu_seen, cpu_seen)):
+        sp, _, se = cpu_moe.gate(x.cpu())
+        gs, ss, ws = (e.sort(dim=-1).values for e in (ge, se, we))
+        if not torch.equal(gs, ss):
+            for t in (gs != ss).any(dim=-1).nonzero().flatten().tolist():
+                log(f"[check] layer {layer} token {t}, same input: card {ge[t].tolist()}, CPU "
+                    f"{se[t].tolist()}; top-{k} gap card {_gap(gp[t], k):.3e}, "
+                    f"CPU {_gap(sp[t], k):.3e}")
+            raise AssertionError(
+                f"MoE layer {layer}: on the same input the CPU's router chose other experts")
+        rows += ge.shape[0]
+        reordered += int((ge != se).any(dim=-1).sum())
+        for t in (gs != ws).any(dim=-1).nonzero().flatten().tolist():
+            flips.append(f"layer {layer} token {t} (card {ge[t].tolist()}, gap "
+                         f"{_gap(gp[t], k):.3e}; CPU {we[t].tolist()}, gap {_gap(wp[t], k):.3e})")
+    log(f"[check] routers on the same input: the card and the CPU chose the same {k} experts "
+        f"for all {rows} (token, layer) rows ({reordered} of them in another order)")
+    log(f"[check] the two prefills on their own hidden states: {len(flips)} of {rows} rows "
+        f"chose another expert set" + ("".join(f"\n[check]   {f}" for f in flips)))
+
+
+def check_logits_against_cpu(arch: str) -> None:
+    """Prefill logits of a two-layer ``arch`` at full width on the card
     against the same weights on the CPU, where the model runs the kernels'
     plain versions. bf16 products accumulate in another order on the two
     devices and round the hidden states at other places, so the logits are
-    held at 5e-2 absolute + relative (about 4 bf16 ulps at |logit| ~ 3)."""
+    held at 5e-2 absolute + relative (about 4 bf16 ulps at |logit| ~ 3).
+    In an MoE model the routers are checked first (``_check_routing``): a
+    flip of an expert is a discrete change, not a rounding, and is reported
+    as one."""
     from repro_torch.core import analysis
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_arch(ARCH), n_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     plan = analysis.build_plan(cfg, None, n_groups=2)
     gpu = Model(cfg, plan, device="cuda", seed=SEED)
     cpu = Model(cfg, plan, device="cpu",
                 params={k: v.cpu() for k, v in gpu.state_dict().items()})
     tokens = np.random.default_rng(SEED + 1).integers(0, cfg.vocab, size=(1, 96))
+    gpu_routing, cpu_routing = _routing(gpu), _routing(cpu)
     got, _ = gpu.prefill(torch.as_tensor(tokens, device="cuda"))
     want, _ = cpu.prefill(torch.as_tensor(tokens))
+    if cfg.moe:
+        _check_routing(gpu_routing, cpu_routing, cfg.moe.top_k)
     got, want = got.float().cpu()[..., : cfg.vocab], want.float()[..., : cfg.vocab]
     if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
         raise AssertionError(f"prefill logits {tuple(got.shape)}, finite={bool(torch.isfinite(got).all())}")
     diff = (got - want).abs()
     bad = diff > 5e-2 + 5e-2 * want.abs()
-    log(f"[check] 2-layer full-width prefill logits, card vs CPU: max |err| "
+    log(f"[check] {cfg.name} 2-layer full-width prefill logits, card vs CPU: max |err| "
         f"{float(diff.max()):.3e}, |logit| max {float(want.abs().max()):.2f}, "
         f"argmax {int(got.argmax())} vs {int(want.argmax())}")
     if bad.any():
@@ -405,12 +636,15 @@ def main() -> int:
     t0 = time.perf_counter()
     environment()
     build()
-    kernels = [check_flash_attention()]
-    counts = serve_full_width()
-    kernels[0]["launches"] = counts["launches"]
-    check_logits_against_cpu()
+    kernels = {"flash_attention": check_flash_attention(), "gather_rows": check_gather_rows()}
+    for k in kernels.values():
+        k["launches"] = 0
+    for arch in ARCHS:
+        for name, n in serve_full_width(arch).items():
+            kernels[name]["launches"] += n
+        check_logits_against_cpu(arch)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

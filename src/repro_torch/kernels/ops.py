@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gather_rows as gr
 
 
 def flash_attention(
@@ -32,3 +33,47 @@ def flash_attention(
     if q.device.type == "cpu":
         return fa.flash_attention_plain(q, k, v, **kw)
     return fa.flash_attention(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch/combine row permutation (gather-only in both directions)
+# ---------------------------------------------------------------------------
+
+
+def _rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(G, N, d) gathered by (G, M) -> (G, M, d); idx -1 -> zero row."""
+    if src.device.type == "cpu":
+        return gr.gather_rows_plain(src, idx)
+    return gr.gather_rows(src, idx)
+
+
+class _MoePermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, out_idx, inv_idx, k_inv):
+        ctx.save_for_backward(inv_idx)
+        ctx.k_inv = k_inv
+        ctx.src_shape = src.shape
+        return _rows(src, out_idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (inv_idx,) = ctx.saved_tensors
+        G, N, d = ctx.src_shape
+        g = _rows(dout.contiguous(), inv_idx)  # (G, N * k_inv, d)
+        dsrc = g.reshape(G, N, ctx.k_inv, d).sum(dim=2).to(dout.dtype)
+        return dsrc, None, None, None
+
+
+def moe_permute(
+    src: torch.Tensor,  # (G, N, d)
+    out_idx: torch.Tensor,  # (G, M) int32
+    inv_idx: torch.Tensor,  # (G, N * k_inv) int32
+    k_inv: int,
+) -> torch.Tensor:
+    """out[g, i] = src[g, out_idx[g, i]] (-1 -> zeros).
+
+    The transpose is also a row gather: ``inv_idx`` lists, for each source
+    row, the k_inv output rows that read it, so the backward gathers the
+    output's gradient by it and sums each row's k_inv copies. No scatter-add
+    runs in either direction."""
+    return _MoePermute.apply(src, out_idx, inv_idx, k_inv)

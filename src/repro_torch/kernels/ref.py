@@ -14,10 +14,10 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask_bias(
+def _mask(
     q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, local_window: int
 ) -> torch.Tensor:
-    """Additive mask bias (q_len, k_len) from position vectors."""
+    """Which (query, key) pairs may attend: bool (q_len, k_len)."""
     ok = torch.ones(
         (q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device
     )
@@ -25,8 +25,15 @@ def _mask_bias(
         ok &= q_pos[:, None] >= k_pos[None, :]
     if local_window > 0:
         ok &= (q_pos[:, None] - k_pos[None, :]) < local_window
+    return ok
+
+
+def _mask_bias(
+    q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, local_window: int
+) -> torch.Tensor:
+    """Additive mask bias (q_len, k_len) from position vectors."""
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
-    return torch.where(ok, zero, NEG_INF)
+    return torch.where(_mask(q_pos, k_pos, causal, local_window), zero, NEG_INF)
 
 
 def attention_ref(
@@ -40,22 +47,30 @@ def attention_ref(
     scale: Optional[float] = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """Naive GQA attention (materializes scores), computed in float32."""
+    """Naive GQA attention (materializes scores), computed in float32.
+
+    The arithmetic follows the reference's kernel over one key block: q is
+    scaled before the product, masked scores are set to NEG_INF, and the
+    sum of exp(s - max) divides the product with V, not the weights before
+    it. The function is the softmax's; the order keeps each float32 result
+    where the reference's is, so that the cast to bfloat16 after it rounds
+    the same way in both packages."""
     B, Sq, H, D = q.shape
     _, Sk, K, _ = k.shape
     if H % K:
         raise ValueError(f"q heads {H} not a multiple of kv heads {K}")
     G = H // K
     scale = (1.0 / D**0.5) if scale is None else scale
-    qq = q.reshape(B, Sq, K, G, D).float()
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qq, k.float()) * scale
+    qq = q.reshape(B, Sq, K, G, D).float() * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qq, k.float())
     if logit_softcap > 0.0:
-        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+        s = logit_softcap * torch.tanh(s / logit_softcap)
     q_pos = torch.arange(Sq, device=q.device) + q_offset
     k_pos = torch.arange(Sk, device=q.device)
-    scores = scores + _mask_bias(q_pos, k_pos, causal, local_window)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    s = torch.where(_mask(q_pos, k_pos, causal, local_window), s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1).clamp_min(1e-37)  # (B, K, G, Sq)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float()) / l.permute(0, 3, 1, 2)[..., None]
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 

@@ -59,6 +59,7 @@ def serve(engine: Engine, requests: Sequence[Request]) -> Dict[str, object]:
         "wall_s": wall,
         "prefill_ms": [1e3 * s for s in engine.prefill_s],
         "decode_tokens": engine.decode_tokens,
+        "decode_steps": engine.decode_steps,
         "decode_tok_s": engine.decode_tokens / engine.decode_s if engine.decode_s else 0.0,
         "peak_mem_gb": torch.cuda.max_memory_allocated(engine.device) / 1e9 if cuda else None,
         "done": done,

@@ -4,8 +4,10 @@
 (nested dicts with the names of the reference's ``Model.init``, each
 group's layers stacked on a leading axis) and returns the port's state dict
 for ``Model(..., params=...)``: each stacked leaf is split into its layers
-(``g0.layers.<i>.<name>``), matrices become bfloat16 and norm scales stay
-float32.
+(``g0.layers.<i>.<name>``), matrices become bfloat16, and norm scales and
+MoE routers stay float32: the reference routes in float32
+(``moe_apply`` reads ``router.astype(float32)``), and a bfloat16 router
+would pick other experts.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ def _leaves(tree: Mapping, prefix: str = ""):
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(tree):
-        dtype = torch.float32 if path.endswith(".scale") else torch.bfloat16
+        f32 = path.endswith(".scale") or path.split(".")[-2:] == ["moe", "router"]
+        dtype = torch.float32 if f32 else torch.bfloat16
         head, sep, rest = path.partition(".layers.")
         if sep:  # stacked (n, ...) leaf of a layer group
             for i in range(arr.shape[0]):

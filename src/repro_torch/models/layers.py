@@ -222,18 +222,29 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 
+def silu(h):
+    """``h * sigmoid(h)``, as ``jax.nn.silu`` defines it. ``F.silu`` rounds
+    another way in float32 (about one element in four differs by an ulp),
+    and after the cast to bfloat16 that follows it, such an ulp can flip a
+    rounding that the two packages would otherwise share."""
+    return h * torch.sigmoid(h)
+
+
 def _act(h, kind: str):
     if kind == "gelu":
         return F.gelu(h, approximate="tanh")
-    return F.silu(h)
+    return silu(h)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ArchConfig, device, d_ff: Optional[int] = None):
+    def __init__(
+        self, cfg: ArchConfig, device, d_ff: Optional[int] = None,
+        act: Optional[str] = None,
+    ):
         super().__init__()
         d = cfg.d_model
         f = cfg.d_ff if d_ff is None else d_ff
-        self.act = cfg.act
+        self.act = cfg.act if act is None else act
         self.wi_gate = _param((d, f), COMPUTE_DTYPE, device)
         self.wi_up = _param((d, f), COMPUTE_DTYPE, device)
         self.wo = _param((f, d), COMPUTE_DTYPE, device)

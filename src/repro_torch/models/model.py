@@ -1,4 +1,4 @@
-"""Model assembly: groups of [attention + MLP] layers driven by an ExecutionPlan.
+"""Model assembly: groups of [attention + MLP or MoE] layers driven by an ExecutionPlan.
 
 The reference scans each group's stacked layers; here a group holds a
 ``ModuleList`` and the scan is a Python loop over it. Parameter names follow
@@ -7,8 +7,9 @@ the reference's tree: ``embed.table``, ``g0.layers.<i>.attn.wq``, ...,
 
 Modes: ``train`` (logits), ``prefill`` (logits + the layers' k/v for the
 decode cache), ``decode`` (one token against the cache, updated in place).
-Only ``attn_mlp`` groups of dense, decoder-only architectures are ported;
-the other group kinds raise ``NotImplementedError``.
+Only ``attn_mlp`` and ``attn_moe`` groups of dense and MoE decoder-only
+architectures are ported; the other group kinds raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.models import layers as L
+from repro_torch.models.moe import MoE
 from repro_torch.models.sharding import MeshCtx
 
 DECODE_MARGIN = 128  # extra slots past the prefilled context
 
 _TODO = {
-    "attn_moe": "MoE layers (ROADMAP Queue 1 item 6, Queue 2 item 3)",
     "ssd": "Mamba-2 layers (ROADMAP Queue 1 item 6, Queue 2 item 2)",
     "pair_local_global": "local/global layer pairs (ROADMAP Queue 1 item 6)",
 }
@@ -94,32 +95,41 @@ def _device(device) -> torch.device:
 
 
 class Block(nn.Module):
-    """One attention + MLP layer (pre-norm residual)."""
+    """One attention + feed-forward layer (pre-norm residual); the
+    feed-forward is a gated MLP, or an MoE in ``attn_moe`` groups."""
 
-    def __init__(self, cfg: ArchConfig, device):
+    def __init__(self, cfg: ArchConfig, device, kind: str):
         super().__init__()
         self.cfg = cfg
         d, eps = cfg.d_model, cfg.norm_eps
         self.norm_attn = L.RMSNorm(d, eps, device)
         self.norm_ffn = L.RMSNorm(d, eps, device)
         self.attn = L.Attention(cfg, device)
-        self.mlp = L.MLP(cfg, device)
+        if kind == "attn_moe":
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = L.MLP(cfg, device)
         if cfg.sandwich_norms:
             self.norm_attn_post = L.RMSNorm(d, eps, device)
             self.norm_ffn_post = L.RMSNorm(d, eps, device)
 
     def forward(self, x, positions, *, cache=None, return_kv=False):
-        """Returns (x, new_cache)."""
+        """Returns (x, new_cache, aux): aux is the MoE's load-balance loss,
+        None for an MLP layer."""
         a, new_cache = self.attn(
             self.norm_attn(x), positions, cache=cache, return_kv=return_kv
         )
         if self.cfg.sandwich_norms:
             a = self.norm_attn_post(a)
         x = x + a
-        f = self.mlp(self.norm_ffn(x))
+        h = self.norm_ffn(x)
+        if hasattr(self, "moe"):
+            f, aux = self.moe(h)
+        else:
+            f, aux = self.mlp(h), None
         if self.cfg.sandwich_norms:
             f = self.norm_ffn_post(f)
-        return x + f, new_cache
+        return x + f, new_cache, aux
 
 
 class Model(nn.Module):
@@ -146,9 +156,9 @@ class Model(nn.Module):
         self.device = _device(device)
         self.groups = make_groups(cfg, plan)
         for g in self.groups:
-            if g.kind != "attn_mlp":
+            if g.kind not in ("attn_mlp", "attn_moe"):
                 raise NotImplementedError(f"{cfg.name}: {_TODO[g.kind]}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.family} models (ROADMAP Queue 1 item 6)"
             )
@@ -161,7 +171,7 @@ class Model(nn.Module):
         )
         for g in self.groups:
             self.add_module(g.name, nn.ModuleDict({
-                "layers": nn.ModuleList(Block(cfg, dev) for _ in range(g.n_layers))
+                "layers": nn.ModuleList(Block(cfg, dev, g.kind) for _ in range(g.n_layers))
             }))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         if not cfg.tie_embeddings:
@@ -178,7 +188,7 @@ class Model(nn.Module):
         s = self.cfg.d_model**-0.5
         self.embed["table"].normal_(0.0, s, generator=gen)
         for m in self.modules():
-            if isinstance(m, (L.RMSNorm, L.Attention, L.MLP)):
+            if isinstance(m, (L.RMSNorm, L.Attention, L.MLP, MoE)):
                 m.reset_parameters(gen)
         if not self.cfg.tie_embeddings:
             self.unembed["kernel"].normal_(0.0, s, generator=gen)
@@ -209,10 +219,11 @@ class Model(nn.Module):
         return logits
 
     def _hidden(self, tokens, positions, cache, mode):
-        """Embedding and every layer; returns (hidden states, raw kv).
+        """Embedding and every layer; returns (hidden states, raw kv, aux).
 
         prefill: raw kv = {group: {"k","v": (n, B, S, K, hd)}};
-        decode: ``cache`` is updated in place and returned."""
+        decode: ``cache`` is updated in place and returned. aux: the MoE
+        layers' load-balance losses summed, float32 (0 without MoE)."""
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         x = self.mctx.wsc(self._embed(tokens))
@@ -220,29 +231,34 @@ class Model(nn.Module):
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
         raw: Dict[str, Any] = {}
+        auxs = []
         for g in self.groups:
             kvs = []
             for i, block in enumerate(self.layers(g)):
                 c = None
                 if mode == "decode":
                     c = {key: t[i] for key, t in cache[g.name].items()}
-                x, kv = block(x, positions, cache=c, return_kv=(mode == "prefill"))
+                x, kv, aux = block(x, positions, cache=c, return_kv=(mode == "prefill"))
                 kvs.append(kv)
+                if aux is not None:
+                    auxs.append(aux)
             x = self.mctx.wsc(x)
             if mode == "prefill":
                 raw[g.name] = {
                     key: torch.stack([kv[key] for kv in kvs]) for key in ("k", "v")
                 }
         x = self.final_norm(x)
-        return x, (cache if mode == "decode" else raw)
+        aux = torch.stack(auxs).sum() if auxs else torch.zeros((), device=x.device)
+        return x, (cache if mode == "decode" else raw), aux
 
     # ------------------------------------------------------------------
     # public entry points
     # ------------------------------------------------------------------
     def forward(self, tokens, positions=None, cache=None, mode: str = "train"):
-        """tokens (B, S) -> (logits (B, S, vp) float32, raw kv or cache)."""
-        x, kv = self._hidden(tokens, positions, cache, mode)
-        return self._logits(x), kv
+        """tokens (B, S) -> (logits (B, S, vp) float32, raw kv or cache,
+        aux loss float32), as the reference's ``forward``."""
+        x, kv, aux = self._hidden(tokens, positions, cache, mode)
+        return self._logits(x), kv, aux
 
     @torch.inference_mode()
     def prefill(self, tokens, ctx_len: Optional[int] = None):
@@ -251,7 +267,7 @@ class Model(nn.Module):
         ctx_len = ctx_len or S
         if S > ctx_len + DECODE_MARGIN:
             raise ValueError(f"prompt of {S} tokens over the cache of {ctx_len}")
-        x, raw = self._hidden(tokens, None, None, "prefill")
+        x, raw, _ = self._hidden(tokens, None, None, "prefill")
         cache = self.init_cache(tokens.shape[0], ctx_len)
         for g in self.groups:
             for key in ("k", "v"):
@@ -263,7 +279,7 @@ class Model(nn.Module):
         """tokens (B,1), positions (B,1) -> (logits (B, vp), cache).
 
         The cache is updated in place; the reference's engine donates it."""
-        x, cache = self._hidden(tokens, positions, cache, "decode")
+        x, cache, _ = self._hidden(tokens, positions, cache, "decode")
         return self._logits(x[:, -1]), cache
 
     # ------------------------------------------------------------------

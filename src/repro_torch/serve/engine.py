@@ -2,7 +2,9 @@
 
 Continuous-batching-lite, as the reference: a request queue is packed into
 fixed decode slots; finished sequences release their slot, the next prefill
-fills it. One batched decode step serves every slot each tick. The decode
+fills it. One batched decode step serves every slot each tick, idle ones
+included, as the reference's does: in an MoE model their tokens take
+expert capacity too. The decode
 cache is updated in place, where the reference donates it to its jitted step.
 Prefill and decode run under ``torch.inference_mode()``: nothing here is
 differentiated, and leaving autograd's bookkeeping out of every operator
@@ -43,7 +45,8 @@ class Engine:
     CPU), with weights ``params`` (the port's state dict) or drawn from
     ``seed``. Host wall times of every prefill and of the decode steps are
     kept in ``prefill_s``, ``decode_s`` and ``decode_tokens``; each ends on
-    a read of the result, so they include the device's work."""
+    a read of the result, so they include the device's work. ``decode_steps``
+    counts the batched decode steps run."""
 
     def __init__(
         self,
@@ -70,6 +73,7 @@ class Engine:
         self.prefill_s: List[float] = []
         self.decode_s = 0.0
         self.decode_tokens = 0
+        self.decode_steps = 0
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -114,6 +118,7 @@ class Engine:
         nxt = torch.argmax(logits[:, : self.cfg.vocab], dim=-1).cpu().numpy()
         self.decode_s += time.perf_counter() - t0
         self.decode_tokens += len(active)
+        self.decode_steps += 1
         for s in active:
             req = self.slot_req[s]
             req.output.append(int(nxt[s]))

@@ -1,10 +1,11 @@
 """The port's model and serving engine against the JAX package's.
 
-Reduced glm4-9b with four layers, so that each of the two layer groups
-stacks two. The JAX init draws the weights from one key; ``params_from_jax``
-carries them into the port. The JAX side runs the Pallas attention kernel
-in interpret mode; the port runs on the CPU, where the kernel is its plain
-version.
+Reduced glm4-9b (dense) and reduced moonshot-v1-16b-a3b (MoE, 4 experts,
+top-2, a shared expert), each with four layers, so that each of the two
+layer groups stacks two. The JAX init draws the weights from one key;
+``params_from_jax`` carries them into the port. The JAX side runs the
+Pallas attention kernel in interpret mode; the port runs on the CPU, where
+every kernel is its plain version.
 
 The JAX side runs with ``jax.disable_jit()``: compiled, XLA fuses the layer
 scan and drops some of the bf16 roundings that the model's code writes
@@ -43,20 +44,23 @@ def _seeded_init(jmodel, key):
     from one test process to the next."""
     params = jmodel.init(key)
     for gi, g in enumerate(jmodel.groups):
-        assert g.kind == "attn_mlp", g.kind
+        assert g.kind in ("attn_mlp", "attn_moe"), g.kind
         keys = jax.random.split(jax.random.fold_in(key, 1000 + gi), g.n_layers)
         params[g.name] = {"layers": jax.vmap(lambda r: jmodel._layer_init(r, g.kind))(keys)}
     return params
 
 
-@pytest.fixture(scope="module")
-def pair():
+ARCHS = {"glm4-9b": "attn_mlp", "moonshot-v1-16b-a3b": "attn_moe"}  # arch: group kind
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def pair(request):
     """(JAX cfg, plan, model, params; port cfg, plan, state dict)."""
-    jcfg = dataclasses.replace(jget_arch("glm4-9b").reduced(), n_layers=4)
+    jcfg = dataclasses.replace(jget_arch(request.param).reduced(), n_layers=4)
     jplan = janalysis.build_plan(jcfg, None, n_groups=2)
     jmodel = JModel(jcfg, jplan, interpret=True)
     params = _seeded_init(jmodel, jax.random.key(0))
-    tcfg = dataclasses.replace(get_arch("glm4-9b").reduced(), n_layers=4)
+    tcfg = dataclasses.replace(get_arch(request.param).reduced(), n_layers=4)
     tplan = analysis.build_plan(tcfg, None, n_groups=2)
     state = params_from_jax(jax.tree.map(np.asarray, params))
     return jcfg, jplan, jmodel, params, tcfg, tplan, state
@@ -64,17 +68,18 @@ def pair():
 
 def test_plan_and_groups_match(pair):
     jcfg, jplan, jmodel, _, tcfg, tplan, _ = pair
-    assert tcfg == dataclasses.replace(tcfg, **dataclasses.asdict(jcfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert [dataclasses.asdict(u) for u in tplan.units] == \
         [dataclasses.asdict(u) for u in jplan.units]
     tmodel = Model(tcfg, tplan, device="cpu")
+    kind = ARCHS[tcfg.name]
     assert [(g.name, g.kind, g.n_layers) for g in tmodel.groups] == \
         [(g.name, g.kind, g.n_layers) for g in jmodel.groups] == \
-        [("g0", "attn_mlp", 2), ("g1", "attn_mlp", 2)]
+        [("g0", kind, 2), ("g1", kind, 2)]
 
 
 def test_params_from_jax_carries_every_weight(pair):
-    _, _, _, params, tcfg, tplan, state = pair
+    _, _, jmodel, params, tcfg, tplan, state = pair
     model = Model(tcfg, tplan, device="cpu", params=state)  # strict load
     got = model.state_dict()
     np.testing.assert_array_equal(
@@ -82,17 +87,36 @@ def test_params_from_jax_carries_every_weight(pair):
         np.asarray(params["g1"]["layers"]["attn"]["wq"][1].astype(jnp.bfloat16), np.float32))
     assert got["g0.layers.0.norm_attn.scale"].dtype == torch.float32
     assert got["unembed.kernel"].dtype == torch.bfloat16
+    # Every MoE leaf: its name, its shape and its dtype (float32 router).
+    moe = {key: (tuple(t.shape), t.dtype) for key, t in got.items() if ".moe." in key}
+    want = {}
+    if tcfg.moe is not None:
+        d, f, E = tcfg.d_model, tcfg.d_ff, tcfg.moe.num_experts
+        fs = f * tcfg.moe.shared_experts
+        leaves = {"router": ((d, E), torch.float32), "wi_gate": ((E, d, f), torch.bfloat16),
+                  "wi_up": ((E, d, f), torch.bfloat16), "wo": ((E, f, d), torch.bfloat16),
+                  "shared.wi_gate": ((d, fs), torch.bfloat16),
+                  "shared.wi_up": ((d, fs), torch.bfloat16),
+                  "shared.wo": ((fs, d), torch.bfloat16)}
+        want = {f"{g.name}.layers.{i}.moe.{leaf}": v for g in jmodel.groups
+                for i in range(g.n_layers) for leaf, v in leaves.items()}
+        np.testing.assert_array_equal(
+            got["g0.layers.1.moe.router"].numpy(), np.asarray(params["g0"]["layers"]["moe"]["router"][1]))
+    assert moe == want
 
 
 def test_forward_logits_at_every_position(pair, rng):
+    """Logits at every position, and the MoE layers' summed aux loss."""
     _, _, jmodel, params, tcfg, tplan, state = pair
     model = Model(tcfg, tplan, device="cpu", params=state)
     tokens = rng.integers(0, tcfg.vocab, size=(2, 11)).astype(np.int32)
     with jax.disable_jit():
-        jlog, _, _ = jmodel.forward(params, {"tokens": jnp.asarray(tokens)})
-    tlog, raw = model(torch.from_numpy(tokens).long())
+        jlog, _, jaux = jmodel.forward(params, {"tokens": jnp.asarray(tokens)})
+    tlog, raw, taux = model(torch.from_numpy(tokens).long())
     assert raw == {} and tlog.shape == (2, 11, model.vp)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **F32)
+    assert taux.dtype == torch.float32 and (float(taux) > 0) == (tcfg.moe is not None)
+    np.testing.assert_allclose(float(taux), float(jaux), **F32)
 
 
 def test_prefill_and_decode_logits(pair, rng):
@@ -146,17 +170,19 @@ def test_entry_points_need_the_card_by_default(pair, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tengine.Engine(tcfg, tplan, state)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        launcher.build_engine("glm4-9b")
+        launcher.build_engine(tcfg.name)
 
 
-def test_launcher_serves_on_the_cpu_when_asked():
-    stats = launcher.main(["--arch", "glm4-9b", "--device", "cpu", "--requests", "3",
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_launcher_serves_on_the_cpu_when_asked(arch):
+    stats = launcher.main(["--arch", arch, "--device", "cpu", "--requests", "3",
                            "--slots", "2", "--prompt-len", "10", "--max-new", "4"])
     assert stats["requests"] == 3 and stats["tokens"] == 12
+    assert stats["decode_steps"] == 6  # 3 steps serve requests 0 and 1 together, 3 request 2
     assert stats["peak_mem_gb"] is None  # read only on a CUDA device
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "mamba2-1.3b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "gemma2-27b"])
 def test_unported_group_kinds_raise(arch):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
