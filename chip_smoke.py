@@ -11,20 +11,23 @@ raises on failure (the script then exits non-zero and prints no result):
 3. hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and on a small grid of the options it takes, and
    time the kernel, the plain version and one library call of the same
-   function: flash attention (tolerances below) and the MoE row gather
-   (``torch.equal``: it is a copy), with ``moe_permute``'s backward;
+   function where PyTorch has one: flash attention (tolerances below), the
+   MoE row gather (``torch.equal``: it is a copy), with ``moe_permute``'s
+   backward, and the Mamba-2 SSD scan (``check_ssd``; no library call);
 4. serve each model of ``ARCHS`` at its published widths and depth
-   through ``repro_torch.launch.serve`` (glm4-9b, then moonshot-v1-16b-a3b,
-   whose MoE layers dispatch and combine through the gather kernel): 8
+   through ``repro_torch.launch.serve`` (glm4-9b; moonshot-v1-16b-a3b,
+   whose MoE layers dispatch and combine through the gather kernel;
+   mamba2-1.3b, whose every prefill layer scans through the SSD kernel): 8
    requests, 4 slots, prompts of 128-2048 tokens, 32 new tokens each, with
    every kernel's launch count set to 0 before the run and read after it;
    time and trace one 2048-token prefill and one decode step of the served
    model (``torch.profiler``: device busy share, top kernels); then check a
-   two-layer full-width model's prefill logits on the card against the
-   same weights on the CPU, where every kernel is its plain version (for
-   the MoE model, after checking that both routers choose the same
-   experts on the same input, and reporting where the two runs chose
-   others);
+   two-layer full-width model's logits on the card against the same
+   weights on the CPU, where every kernel is its plain version (for the
+   MoE model, after checking that both routers choose the same experts on
+   the same input, and reporting where the two runs chose others; for
+   mamba2, the prefill and the cache-free forward of a 300-token prompt,
+   a full chunk and a padded one);
 5. one JSON line of the kernels, the card line, and last the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -47,7 +50,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-ARCHS = ("glm4-9b", "moonshot-v1-16b-a3b")  # the main paths, each served in turn
+ARCHS = ("glm4-9b", "moonshot-v1-16b-a3b", "mamba2-1.3b")  # the main paths, each served in turn
 N_REQUESTS, SLOTS, MAX_NEW, CTX_LEN = 8, 4, 32, 4096
 PROMPT_LENS = (128, 2048)
 # The main path's attention shape: one 2048-token glm4-9b prefill.
@@ -61,6 +64,17 @@ ROW_TOL = 1e-2  # bf16 relative L2 error of one output row; one ulp is at most 2
 # The profile phase: one prefill of the longest prompt, decode steps over
 # the filled slots.
 PROFILE_PROMPT, PROFILE_STEPS, PROFILE_ROWS = PROMPT_LENS[1], 8, 8
+
+# The SSD scan's main shape: one layer of a 2048-token mamba2-1.3b prefill.
+SSD_MAIN = dict(B=1, S=2048, H=64, P=64, N=128, chunk=256, dtype=torch.bfloat16)
+SSD_TOL = dict(atol=2e-4, rtol=2e-3)  # f32 y and every state, as the JAX SSD kernel tests
+SSD_ROW_TOL = 1e-2  # bf16 y: relative L2 error of each (batch, head)
+# At the main shape the kernel's bf16 y may be off its plain version by at
+# most this (max |err|), a limit set from the error measured on the card
+# (3.125e-2, one bf16 ulp at |y| in [4, 8), with |y| up to 17.75 there):
+# one bf16 ulp of the largest |y|, which lies in [16, 32).
+SSD_MAIN_LIMIT = 0.125
+SSD_CPU_PROMPT = 300  # the card-vs-CPU check of mamba2: a full chunk of 256 and a padded one
 
 # Published peaks of one H100 SXM (dense, at its 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -404,6 +418,132 @@ def check_gather_rows() -> dict:
     }
 
 
+def _ssd_inputs(gen, B, S, H, P, N, dtype, dt_range=(1e-3, 0.1)):
+    """x, dt, A, B, C on the card: A as ``ssd_init`` makes it (-1 to -8),
+    dt in the range a softplus of the init's dt_bias gives."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    lo, hi = dt_range
+    dt = lo + (hi - lo) * torch.rand((B, S, H), generator=gen, device="cuda")
+    A = -torch.linspace(1.0, 8.0, H, device="cuda")
+    return mk(B, S, H, P).to(dtype), dt, A, mk(B, S, N).to(dtype), mk(B, S, N).to(dtype)
+
+
+def _ssd_err(got, want, what: str):
+    """max |y err| and max |state err|; raises beyond the tolerances: f32 y
+    and every state at ``SSD_TOL``; bf16 y at 2e-2 elementwise and
+    ``SSD_ROW_TOL`` relative L2 error per (batch, head)."""
+    (gy, gs), (wy, ws) = got, want
+    torch.cuda.synchronize()
+    if not (torch.isfinite(gy.float()).all() and torch.isfinite(gs).all()):
+        raise AssertionError(f"ssd_scan {what}: output not finite")
+    if gy.shape != wy.shape or gy.dtype != wy.dtype or gs.shape != ws.shape:
+        raise AssertionError(f"ssd_scan {what}: shapes {gy.shape} {gs.shape}, want {wy.shape} {ws.shape}")
+    g, w = gy.float(), wy.float()
+    tol = SSD_TOL if gy.dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    for name, a, b, t in (("y", g, w, tol), ("state", gs, ws, SSD_TOL)):
+        bad = (a - b).abs() > t["atol"] + t["rtol"] * b.abs()
+        if bad.any():
+            raise AssertionError(
+                f"ssd_scan {what}: {name} off its plain version at {int(bad.sum())} elements, "
+                f"max |err| {float((a - b).abs().max()):.3e}, tolerance {t}")
+    if gy.dtype == torch.bfloat16:
+        d = (g - w).transpose(1, 2).flatten(2)  # (B, H, S * P)
+        row = d.norm(dim=-1) / w.transpose(1, 2).flatten(2).norm(dim=-1).clamp_min(1e-30)
+        if float(row.max()) > SSD_ROW_TOL:
+            raise AssertionError(f"ssd_scan {what}: a (batch, head) off by {float(row.max()):.3e} "
+                                 f"relative L2 error, over {SSD_ROW_TOL}")
+    return float((g - w).abs().max()), float((gs - ws).abs().max())
+
+
+def ssd_bound_ms(B, S, H, P, N, chunk, dtype):
+    """Least time for one scan: the larger of its bytes (x, dt, A, B, C read
+    once, y and the final state written once) over the memory rate and its
+    operations over the peak rate for the input type. Operations: per chunk,
+    C B^T over the causal half once (it is the same for every head), and
+    per head the causal product with X, the carried state's part (none in
+    the first chunk, whose state is zero) and the state update."""
+    es = torch.finfo(dtype).bits // 8
+    nc = S // chunk
+    nbytes = (2 * B * S * H * P * es + B * S * H * 4 + H * 4 + 2 * B * S * N * es
+              + B * H * P * N * 4)
+    causal = chunk * (chunk + 1) // 2
+    flops = B * nc * 2.0 * causal * N + B * H * (
+        nc * 2.0 * causal * P + (nc - 1) * 2.0 * chunk * N * P + nc * 2.0 * chunk * P * N)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), nbytes, flops
+
+
+def _ptxas(lib_name: str) -> str:
+    from repro_torch.kernels import _build
+
+    lib = _build.build_all()[lib_name]
+    lines = lib.with_suffix(".log").read_text().splitlines()
+    return "; ".join(ln.split("ptxas info    :")[-1].strip() for ln in lines
+                     if "registers" in ln or "spill" in ln)
+
+
+def check_ssd() -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = []
+    for S in (1, 37, 256, 300, 2048):
+        for P, N in ((64, 128), (16, 16)):
+            for dt in (torch.bfloat16, torch.float32):
+                cases.append((f"S={S} P={P} N={N} {str(dt)[6:]}", S, P, N, dt, (1e-3, 0.1)))
+    cases.append(("large dt: decays underflow to 0", 300, 64, 128, torch.bfloat16, (5.0, 50.0)))
+    cases.append(("large dt f32", 37, 16, 16, torch.float32, (5.0, 50.0)))
+    for i, (name, S, P, N, dt, dt_range) in enumerate(cases):
+        B, H, return_state = 1 + i % 2, 4, i % 3 != 2
+        x, d, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, N, dt, dt_range)
+        got = ops.ssd_scan(x, d, A, Bm, Cm, chunk=256, return_state=return_state)
+        # the plain version on the same padded inputs, with its state
+        chunk = min(256, S)
+        pad = (-S) % chunk
+        xp, dp, Bp, Cp = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, d, Bm, Cm))
+        wy, ws = ssd.ssd_scan_plain(xp, dp, A, Bp, Cp, chunk=chunk)
+        want = (wy[:, :S], ws)
+        if not return_state:
+            gs = ssd.ssd_scan(xp, dp, A, Bp, Cp, chunk=chunk)[1]  # the state is checked all the same
+            got = (got, gs)
+        ey, es = _ssd_err(got, want, name)
+        log(f"[kernel] ssd_scan {name}: B={B} S={S} (chunk {chunk}, pad {pad}) H={H} P={P} "
+            f"N={N}, return_state={return_state}: max |err| y {ey:.3e}, state {es:.3e}")
+
+    m = SSD_MAIN
+    B, S, H, P, N, chunk, dt = (m[k] for k in ("B", "S", "H", "P", "N", "chunk", "dtype"))
+    x, d, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, N, dt)
+    got = ssd.ssd_scan(x, d, A, Bm, Cm, chunk=chunk)
+    want = ssd.ssd_scan_plain(x, d, A, Bm, Cm, chunk=chunk)
+    err, state_err = _ssd_err(got, want, "main shape")
+    if err > SSD_MAIN_LIMIT:
+        raise AssertionError(f"ssd_scan main shape: max |err| {err:.3e} over {SSD_MAIN_LIMIT}")
+    ymax = float(want[0].float().abs().max())
+    ms = time_ms(lambda: ssd.ssd_scan(x, d, A, Bm, Cm, chunk=chunk), reps=20)
+    plain_ms = time_ms(lambda: ssd.ssd_scan_plain(x, d, A, Bm, Cm, chunk=chunk), reps=5)
+    bound_ms, bound_by, nbytes, flops = ssd_bound_ms(B, S, H, P, N, chunk, dt)
+    log(f"[kernel] ssd_scan main shape B={B} S={S} H={H} P={P} N={N} chunk {chunk} bf16: max "
+        f"|err| y {err:.3e} (|y| max {ymax:.2f}, limit {SSD_MAIN_LIMIT}), state {state_err:.3e}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); ptxas: {_ptxas('ssd')}")
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:26",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 # ---------------------------------------------------------------------------
 # 4: the main paths
 # ---------------------------------------------------------------------------
@@ -411,8 +551,6 @@ def check_gather_rows() -> dict:
 
 def serve_full_width(arch: str) -> dict:
     """Serve ``arch`` at full width; returns each kernel's launches in the run."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gather_rows as gr
     from repro_torch.launch import serve as launcher
 
     torch.cuda.empty_cache()
@@ -424,10 +562,17 @@ def serve_full_width(arch: str) -> dict:
     torch.cuda.synchronize()
     cfg = engine.cfg
     n_params = sum(p.numel() for p in engine.model.parameters())
-    moe = (f", MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
-           f"{cfg.moe.shared_experts} shared" if cfg.moe else "")
-    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}{moe}, "
+    if cfg.ssm:
+        s = cfg.ssm
+        inner = s.expand * cfg.d_model
+        layer = (f"SSD: inner {inner}, {inner // s.head_dim} heads of {s.head_dim}, state "
+                 f"{s.state_dim}, conv {s.conv_width}, chunk {s.chunk}")
+    else:
+        moe = (f", MoE {cfg.moe.num_experts} experts top-{cfg.moe.top_k} + "
+               f"{cfg.moe.shared_experts} shared" if cfg.moe else "")
+        layer = (f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.resolved_head_dim}, "
+                 f"d_ff {cfg.d_ff}{moe}")
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {layer}, "
         f"vocab {cfg.vocab}: {n_params / 1e9:.3f} B parameters drawn in "
         f"{time.perf_counter() - t0:.1f} s")
     lens = np.random.default_rng(SEED).integers(
@@ -435,9 +580,10 @@ def serve_full_width(arch: str) -> dict:
     )
     reqs = launcher.random_requests(cfg.vocab, lens.tolist(), MAX_NEW, SEED)
 
-    fa.launches = gr.launches = 0
+    for mod in launcher.KERNELS.values():
+        mod.launches = 0
     stats = launcher.serve(engine, reqs)
-    launches = {"flash_attention": fa.launches, "gather_rows": gr.launches}
+    launches = {name: mod.launches for name, mod in launcher.KERNELS.items()}
 
     done = stats["done"]
     prefills, steps = len(engine.prefill_s), stats["decode_steps"]
@@ -446,22 +592,25 @@ def serve_full_width(arch: str) -> dict:
     for r in done:
         if len(r.output) != MAX_NEW or not all(0 <= t < cfg.vocab for t in r.output):
             raise AssertionError(f"request {r.request_id}: output {r.output}")
-    # Every prefill runs each layer's attention through the flash kernel;
-    # every prefill and decode step runs each MoE layer's dispatch and
-    # combine through the gather kernel.
+    # Every prefill runs each layer's attention through the flash kernel,
+    # or each SSD layer's scan through the SSD kernel; every prefill and
+    # decode step runs each MoE layer's dispatch and combine through the
+    # gather kernel.
     want = {
-        "flash_attention": cfg.n_layers * prefills,
+        "flash_attention": 0 if cfg.ssm else cfg.n_layers * prefills,
         "gather_rows": 2 * cfg.n_layers * (prefills + steps) if cfg.moe else 0,
+        "ssd_scan": cfg.n_layers * prefills if cfg.ssm else 0,
     }
-    if launches != want:
-        raise AssertionError(f"kernel launches in the run {launches}, want {want} "
-                             f"({cfg.n_layers} layers, {prefills} prefills, {steps} decode steps)")
+    if launches != want or stats["launches"] != want:
+        raise AssertionError(f"kernel launches in the run {launches} (the launcher counted "
+                             f"{stats['launches']}), want {want} ({cfg.n_layers} layers, "
+                             f"{prefills} prefills, {steps} decode steps)")
     pre = ", ".join(f"{n}:{ms:.1f}" for n, ms in zip(lens.tolist(), stats["prefill_ms"]))
     log(f"[serve] {len(done)} requests, {stats['tokens']} tokens in {stats['wall_s']:.2f} s; "
-        f"{prefills} prefills, {steps} decode steps; flash_attention launches "
-        f"{launches['flash_attention']} = {cfg.n_layers} x {prefills} prefills; gather_rows "
-        f"launches {launches['gather_rows']}"
-        + (f" = 2 x {cfg.n_layers} x ({prefills} + {steps})" if cfg.moe else ""))
+        f"{prefills} prefills, {steps} decode steps; kernel launches {launches} "
+        f"({cfg.n_layers} layers: " + ("the scan once a layer a prefill" if cfg.ssm else
+        "attention once a layer a prefill") + (", dispatch and combine twice a layer a prefill "
+        "and a decode step" if cfg.moe else "") + ")")
     log(f"[serve] prefill ms per prompt (tokens:ms, host clock to the first token): {pre}")
     log(f"[serve] decode {stats['decode_tokens']} tokens at {stats['decode_tok_s']:.1f} tok/s "
         f"over {SLOTS} slots; peak device memory {stats['peak_mem_gb']:.2f} GB")
@@ -598,27 +747,45 @@ def check_logits_against_cpu(arch: str) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
 
+    from repro_torch.kernels import ssd
+
     cfg = dataclasses.replace(get_arch(arch), n_layers=2)
     plan = analysis.build_plan(cfg, None, n_groups=2)
     gpu = Model(cfg, plan, device="cuda", seed=SEED)
     cpu = Model(cfg, plan, device="cpu",
                 params={k: v.cpu() for k, v in gpu.state_dict().items()})
-    tokens = np.random.default_rng(SEED + 1).integers(0, cfg.vocab, size=(1, 96))
+    S = SSD_CPU_PROMPT if cfg.ssm else 96
+    tokens = np.random.default_rng(SEED + 1).integers(0, cfg.vocab, size=(1, S))
     gpu_routing, cpu_routing = _routing(gpu), _routing(cpu)
+    launches = ssd.launches
     got, _ = gpu.prefill(torch.as_tensor(tokens, device="cuda"))
     want, _ = cpu.prefill(torch.as_tensor(tokens))
     if cfg.moe:
         _check_routing(gpu_routing, cpu_routing, cfg.moe.top_k)
-    got, want = got.float().cpu()[..., : cfg.vocab], want.float()[..., : cfg.vocab]
-    if got.shape != (1, cfg.vocab) or not torch.isfinite(got).all():
-        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite={bool(torch.isfinite(got).all())}")
-    diff = (got - want).abs()
-    bad = diff > 5e-2 + 5e-2 * want.abs()
-    log(f"[check] {cfg.name} 2-layer full-width prefill logits, card vs CPU: max |err| "
-        f"{float(diff.max()):.3e}, |logit| max {float(want.abs().max()):.2f}, "
-        f"argmax {int(got.argmax())} vs {int(want.argmax())}")
-    if bad.any():
-        raise AssertionError(f"{int(bad.sum())} logits beyond 5e-2 of the CPU's")
+    pairs = [("prefill", got[..., : cfg.vocab], want[..., : cfg.vocab], (1, cfg.vocab))]
+    if cfg.ssm:
+        if ssd.launches - launches != cfg.n_layers:
+            raise AssertionError(f"the prefill launched the SSD kernel {ssd.launches - launches} times")
+        launches = ssd.launches
+        with torch.inference_mode():
+            got_t, _, _ = gpu(torch.as_tensor(tokens, device="cuda"))
+            want_t, _, _ = cpu(torch.as_tensor(tokens))
+        if ssd.launches - launches != cfg.n_layers:
+            raise AssertionError(f"the forward launched the SSD kernel {ssd.launches - launches} times")
+        pairs.append(("mode=train forward", got_t[..., : cfg.vocab], want_t[..., : cfg.vocab],
+                      (1, S, cfg.vocab)))
+    for what, got, want, shape in pairs:
+        got, want = got.float().cpu(), want.float()
+        if got.shape != shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{what} logits {tuple(got.shape)}, finite={bool(torch.isfinite(got).all())}")
+        diff = (got - want).abs()
+        bad = diff > 5e-2 + 5e-2 * want.abs()
+        same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"[check] {cfg.name} 2-layer full-width {what} logits ({S} tokens), card vs CPU: max "
+            f"|err| {float(diff.max()):.3e}, |logit| max {float(want.abs().max()):.2f}, argmax "
+            f"equal at {100 * same:.1f}% of positions")
+        if bad.any():
+            raise AssertionError(f"{int(bad.sum())} {what} logits beyond 5e-2 of the CPU's")
     del gpu, cpu
     torch.cuda.empty_cache()
 
@@ -636,7 +803,8 @@ def main() -> int:
     t0 = time.perf_counter()
     environment()
     build()
-    kernels = {"flash_attention": check_flash_attention(), "gather_rows": check_gather_rows()}
+    kernels = {"flash_attention": check_flash_attention(), "gather_rows": check_gather_rows(),
+               "ssd_scan": check_ssd()}
     for k in kernels.values():
         k["launches"] = 0
     for arch in ARCHS:

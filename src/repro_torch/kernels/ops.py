@@ -7,9 +7,12 @@ card the kernel launches or raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gather_rows as gr
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd
 
 
 def flash_attention(
@@ -33,6 +36,48 @@ def flash_attention(
     if q.device.type == "cpu":
         return fa.flash_attention_plain(q, k, v, **kw)
     return fa.flash_attention(q, k, v, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD scan and its one-token recurrence
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H) float32, after softplus
+    A: torch.Tensor,  # (H,) float32, negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int,
+    return_state: bool = False,
+):
+    """The SSD chunked scan from a zero state, chunked as the reference
+    chunks it: ``chunk = min(chunk, S)``, and x, dt, B and C zero-padded to a
+    multiple of it. A padded row has dt = 0: decay 1 and no update, so the
+    final state is the state at S. Returns y, or (y, final state float32)
+    with ``return_state``."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    if x.device.type == "cpu":
+        y, state = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    else:
+        y, state = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y = y[:, :S] if pad else y
+    return (y, state) if return_state else y
+
+
+def ssd_decode(x, dt, A, Bm, Cm, state):
+    """One token of the SSD recurrence, plain PyTorch on every device (it is
+    a few elementwise passes over the state): (y, new state)."""
+    return ref.ssd_decode_ref(x, dt, A, Bm, Cm, state)
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,8 @@
 against, and the kernel's plain version on CPU tensors.
 ``attention_chunked`` is the same function by online softmax over key
 chunks (O(S * chunk) memory), the flash recurrence in plain tensor code.
+``ssd_ref`` is the Mamba-2 chunked scan that the SSD kernel is held
+against, and ``ssd_decode_ref`` its one-token recurrence.
 """
 from __future__ import annotations
 
@@ -120,3 +122,92 @@ def attention_chunked(
     out = acc / torch.clamp_min(l, 1e-37)[..., None]  # (B, K, G, Sq, D)
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
     return out.to(q.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise sums: out[..., i, j] = sum_{j<k<=i} x[..., k],
+    -inf above the diagonal. The reference's order: cumsum, then c_i - c_j,
+    then the mask."""
+    T = x.shape[-1]
+    c = torch.cumsum(x, dim=-1)
+    out = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)      (post-softplus, positive)
+    A: torch.Tensor,  # (H,)            (negative)
+    Bm: torch.Tensor,  # (B, S, N)      (single group)
+    Cm: torch.Tensor,  # (B, S, N)
+    *,
+    chunk: int = 64,
+    return_state: bool = False,
+):
+    """Mamba-2 SSD (state-space duality) chunked scan from a zero state.
+
+    Intra-chunk quadratic term plus the inter-chunk recurrent state, as
+    ``ssd_minimal_discrete`` of the Mamba-2 paper. ``x * dt`` is taken in
+    float32, as the reference's oracle takes it (its Pallas path rounds it
+    to x's dtype first). Returns y (x's dtype), and with ``return_state``
+    also the final state (B, H, P, N) float32."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    nc = S // chunk
+    f32 = torch.float32
+    xb = (x * dt[..., None]).to(f32)  # dt-weighted input
+    dA = (dt * A[None, None, :]).to(f32)  # (B, S, H) log-decay increments
+
+    xc = xb.reshape(B, nc, chunk, H, P)
+    dAc = dA.reshape(B, nc, chunk, H)
+    Bc = Bm.reshape(B, nc, chunk, N).to(f32)
+    Cc = Cm.reshape(B, nc, chunk, N).to(f32)
+
+    # 1. intra-chunk (diagonal blocks): Y = (C B^T * L) X
+    L = torch.exp(_segsum(dAc.permute(0, 1, 3, 2)))  # (B, nc, H, cs, cs)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)  # (B, nc, cs, cs)
+    y_diag = torch.einsum("bcij,bchij,bcjhp->bcihp", scores, L, xc)
+
+    # 2. per-chunk final states: sum_i exp(cum[-1] - cum[i]) * x_i B_i^T
+    cum = torch.cumsum(dAc, dim=2)  # (B, nc, cs, H)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    chunk_states = torch.einsum("bcihp,bcih,bcin->bchpn", xc, decay_to_end, Bc)
+
+    # 3. inter-chunk recurrence over the chunk index
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B, nc, H)
+    state = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_states[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B, nc, H, P, N)
+
+    # 4. inter-chunk output: C_i decayed against the incoming state
+    state_decay = torch.exp(cum)  # (B, nc, cs, H)
+    y_off = torch.einsum("bcin,bchpn,bcih->bcihp", Cc, prev_states, state_decay)
+
+    y = (y_diag + y_off).reshape(B, S, H, P).to(x.dtype)
+    if return_state:
+        return y, state
+    return y
+
+
+def ssd_decode_ref(
+    x: torch.Tensor,  # (B, H, P) single token
+    dt: torch.Tensor,  # (B, H)
+    A: torch.Tensor,  # (H,)
+    Bm: torch.Tensor,  # (B, N)
+    Cm: torch.Tensor,  # (B, N)
+    state: torch.Tensor,  # (B, H, P, N) float32
+):
+    """Single-token SSD recurrence: state' = e^{dt A} state + dt x B^T.
+    Returns (y (B, H, P) in x's dtype, new state float32)."""
+    f32 = torch.float32
+    dA = torch.exp((dt * A[None, :]).to(f32))  # (B, H)
+    upd = torch.einsum("bhp,bn->bhpn", (x * dt[..., None]).to(f32), Bm.to(f32))
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, Cm.to(f32))
+    return y.to(x.dtype), new_state

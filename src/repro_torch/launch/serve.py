@@ -1,6 +1,7 @@
 """Serving launcher: batched requests against the port's model on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --full-width
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full-width
 
 Without ``--full-width`` the architecture is cut to its reduced smoke size,
 as the reference launcher always does; with it the model has its published
@@ -18,7 +19,10 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core import analysis
+from repro_torch.kernels import flash_attention, gather_rows, ssd
 from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+KERNELS = {"flash_attention": flash_attention, "gather_rows": gather_rows, "ssd_scan": ssd}
 
 REDUCED_CTX_LEN = 128
 
@@ -43,17 +47,21 @@ def build_engine(
 
 
 def serve(engine: Engine, requests: Sequence[Request]) -> Dict[str, object]:
-    """Run every request to completion; returns what the run measured.
-    Peak device memory is read only on a CUDA device."""
+    """Run every request to completion; returns what the run measured,
+    with each CUDA kernel's launches during the run (0 on the CPU, where
+    the kernels' plain versions run). Peak device memory is read only on a
+    CUDA device."""
     cuda = engine.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(engine.device)
+    before = {name: mod.launches for name, mod in KERNELS.items()}
     t0 = time.perf_counter()
     for r in requests:
         engine.submit(r)
     done = engine.run_until_done()
     wall = time.perf_counter() - t0
     return {
+        "launches": {name: mod.launches - before[name] for name, mod in KERNELS.items()},
         "requests": len(done),
         "tokens": sum(len(r.output) for r in done),
         "wall_s": wall,
@@ -108,6 +116,7 @@ def main(argv: Optional[Sequence[str]] = None):
         f"{stats['tokens']} tokens in {stats['wall_s']:.2f}s "
         f"(decode {stats['decode_tok_s']:.1f} tok/s, slots={args.slots})"
     )
+    print("  kernel launches: " + ", ".join(f"{k} {n}" for k, n in stats["launches"].items()))
     for r in stats["done"][:4]:
         print(f"  req{r.request_id}: {r.output}")
     return stats

@@ -4,10 +4,13 @@
 (nested dicts with the names of the reference's ``Model.init``, each
 group's layers stacked on a leading axis) and returns the port's state dict
 for ``Model(..., params=...)``: each stacked leaf is split into its layers
-(``g0.layers.<i>.<name>``), matrices become bfloat16, and norm scales and
-MoE routers stay float32: the reference routes in float32
-(``moe_apply`` reads ``router.astype(float32)``), and a bfloat16 router
-would pick other experts.
+(``g0.layers.<i>.<name>``), matrices become bfloat16, and the leaves that
+the reference reads in float32 stay float32: norm scales; MoE routers
+(``moe_apply`` reads ``router.astype(float32)``; a bfloat16 router would
+pick other experts); and the six small leaves of an SSD layer, ``A_log``,
+``dt_bias``, ``conv_x``, ``conv_bc``, ``norm`` and ``Dskip``, which
+``ssd_apply`` reads without a cast to bfloat16 (``A_log`` in bfloat16
+would move every head's decay by up to 0.4%).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.models.mamba import F32_LEAVES
 
 
 def _leaves(tree: Mapping, prefix: str = ""):
@@ -29,7 +34,12 @@ def _leaves(tree: Mapping, prefix: str = ""):
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(tree):
-        f32 = path.endswith(".scale") or path.split(".")[-2:] == ["moe", "router"]
+        tail = path.split(".")[-2:]
+        f32 = (
+            path.endswith(".scale")
+            or tail == ["moe", "router"]
+            or (tail[0] == "ssd" and tail[1] in F32_LEAVES)
+        )
         dtype = torch.float32 if f32 else torch.bfloat16
         head, sep, rest = path.partition(".layers.")
         if sep:  # stacked (n, ...) leaf of a layer group

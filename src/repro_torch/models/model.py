@@ -1,15 +1,16 @@
-"""Model assembly: groups of [attention + MLP or MoE] layers driven by an ExecutionPlan.
+"""Model assembly: groups of [attention + MLP or MoE] or SSD layers driven by an ExecutionPlan.
 
 The reference scans each group's stacked layers; here a group holds a
 ``ModuleList`` and the scan is a Python loop over it. Parameter names follow
 the reference's tree: ``embed.table``, ``g0.layers.<i>.attn.wq``, ...,
 ``final_norm.scale``, ``unembed.kernel``.
 
-Modes: ``train`` (logits), ``prefill`` (logits + the layers' k/v for the
-decode cache), ``decode`` (one token against the cache, updated in place).
-Only ``attn_mlp`` and ``attn_moe`` groups of dense and MoE decoder-only
-architectures are ported; the other group kinds raise
-``NotImplementedError``.
+Modes: ``train`` (logits), ``prefill`` (logits + the layers' k/v, or
+their conv tails and SSD states, for the decode cache), ``decode`` (one
+token against the cache, updated in place). The ``attn_mlp`` and
+``attn_moe`` groups of dense and MoE decoder-only architectures and the
+``ssd`` groups of Mamba-2 (``family == "ssm"``) are ported; local/global
+pairs and hybrids raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,13 +23,13 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.plan import ExecutionPlan
 from repro_torch.models import layers as L
+from repro_torch.models import mamba
 from repro_torch.models.moe import MoE
 from repro_torch.models.sharding import MeshCtx
 
 DECODE_MARGIN = 128  # extra slots past the prefilled context
 
 _TODO = {
-    "ssd": "Mamba-2 layers (ROADMAP Queue 1 item 6, Queue 2 item 2)",
     "pair_local_global": "local/global layer pairs (ROADMAP Queue 1 item 6)",
 }
 
@@ -132,6 +133,20 @@ class Block(nn.Module):
         return x + f, new_cache, aux
 
 
+class SSDBlock(nn.Module):
+    """One Mamba-2 layer: ``x + ssd(x)``, with no norm before it, as the
+    reference's ``_apply_block`` applies an ``ssd`` layer."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        self.ssd = mamba.SSD(cfg, device)
+
+    def forward(self, x, positions, *, cache=None, return_kv=False):
+        """Returns (x, new_cache, None); positions are not read."""
+        h, new_cache = self.ssd(x, cache=cache, return_cache=return_kv)
+        return x + h, new_cache, None
+
+
 class Model(nn.Module):
     """The decoder on ``device`` (CUDA unless the caller asks for the CPU).
 
@@ -156,9 +171,9 @@ class Model(nn.Module):
         self.device = _device(device)
         self.groups = make_groups(cfg, plan)
         for g in self.groups:
-            if g.kind not in ("attn_mlp", "attn_moe"):
+            if g.kind not in ("attn_mlp", "attn_moe", "ssd"):
                 raise NotImplementedError(f"{cfg.name}: {_TODO[g.kind]}")
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.family} models (ROADMAP Queue 1 item 6)"
             )
@@ -170,9 +185,10 @@ class Model(nn.Module):
             {"table": L._param((self.vp, cfg.d_model), bf16, dev)}
         )
         for g in self.groups:
-            self.add_module(g.name, nn.ModuleDict({
-                "layers": nn.ModuleList(Block(cfg, dev, g.kind) for _ in range(g.n_layers))
-            }))
+            self.add_module(g.name, nn.ModuleDict({"layers": nn.ModuleList(
+                SSDBlock(cfg, dev) if g.kind == "ssd" else Block(cfg, dev, g.kind)
+                for _ in range(g.n_layers)
+            )}))
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         if not cfg.tie_embeddings:
             self.unembed = nn.ParameterDict(
@@ -188,7 +204,7 @@ class Model(nn.Module):
         s = self.cfg.d_model**-0.5
         self.embed["table"].normal_(0.0, s, generator=gen)
         for m in self.modules():
-            if isinstance(m, (L.RMSNorm, L.Attention, L.MLP, MoE)):
+            if isinstance(m, (L.RMSNorm, L.Attention, L.MLP, MoE, mamba.SSD)):
                 m.reset_parameters(gen)
         if not self.cfg.tie_embeddings:
             self.unembed["kernel"].normal_(0.0, s, generator=gen)
@@ -221,7 +237,8 @@ class Model(nn.Module):
     def _hidden(self, tokens, positions, cache, mode):
         """Embedding and every layer; returns (hidden states, raw kv, aux).
 
-        prefill: raw kv = {group: {"k","v": (n, B, S, K, hd)}};
+        prefill: raw kv = {group: {"k","v": (n, B, S, K, hd)}}, or for an
+        SSD group {"conv_x", "conv_bc", "state": (n, B, ...)};
         decode: ``cache`` is updated in place and returned. aux: the MoE
         layers' load-balance losses summed, float32 (0 without MoE)."""
         if mode not in ("train", "prefill", "decode"):
@@ -245,7 +262,7 @@ class Model(nn.Module):
             x = self.mctx.wsc(x)
             if mode == "prefill":
                 raw[g.name] = {
-                    key: torch.stack([kv[key] for kv in kvs]) for key in ("k", "v")
+                    key: torch.stack([kv[key] for kv in kvs]) for key in kvs[0]
                 }
         x = self.final_norm(x)
         aux = torch.stack(auxs).sum() if auxs else torch.zeros((), device=x.device)
@@ -270,8 +287,11 @@ class Model(nn.Module):
         x, raw, _ = self._hidden(tokens, None, None, "prefill")
         cache = self.init_cache(tokens.shape[0], ctx_len)
         for g in self.groups:
-            for key in ("k", "v"):
-                cache[g.name][key][:, :, :S] = raw[g.name][key]
+            for key, t in raw[g.name].items():
+                if g.kind == "ssd":  # conv tails and the state: the whole leaf
+                    cache[g.name][key].copy_(t)
+                else:  # k/v: the prompt's positions of the context
+                    cache[g.name][key][:, :, :S] = t
         return self._logits(x[:, -1]), cache
 
     @torch.inference_mode()
@@ -286,16 +306,21 @@ class Model(nn.Module):
     # caches
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, ctx_len: int):
-        """Zero decode cache in the direct layout: per group
-        {"k","v": (n, batch, ctx_len + DECODE_MARGIN, K, hd)} bfloat16."""
+        """Zero decode cache, per group: for attention, the direct layout
+        {"k","v": (n, batch, ctx_len + DECODE_MARGIN, K, hd)} bfloat16; for
+        SSD, {"conv_x", "conv_bc": (n, batch, W-1, C) bfloat16, "state":
+        (n, batch, H, P, N) float32}, whatever the context. Axis 1 is the
+        batch (the engine's slot) in every leaf."""
         cfg = self.cfg
-        shape = (batch, ctx_len + DECODE_MARGIN, cfg.kv_heads, cfg.resolved_head_dim)
-        return {
-            g.name: {
-                key: torch.zeros(
-                    (g.n_layers, *shape), dtype=L.COMPUTE_DTYPE, device=self.device
-                )
-                for key in ("k", "v")
+        kv = (batch, ctx_len + DECODE_MARGIN, cfg.kv_heads, cfg.resolved_head_dim)
+        cache = {}
+        for g in self.groups:
+            if g.kind == "ssd":
+                leaves = mamba.ssd_cache_shapes(cfg, batch)
+            else:
+                leaves = {key: (kv, L.COMPUTE_DTYPE) for key in ("k", "v")}
+            cache[g.name] = {
+                key: torch.zeros((g.n_layers, *shape), dtype=dt, device=self.device)
+                for key, (shape, dt) in leaves.items()
             }
-            for g in self.groups
-        }
+        return cache

@@ -88,6 +88,7 @@ class Engine:
         tok = int(torch.argmax(logits[0, : self.cfg.vocab]))
         if self.cache is None:
             self.cache = self.model.init_cache(self.scfg.slots, self.scfg.ctx_len)
+        # Axis 1 is the batch axis of every stacked leaf, k/v and SSD alike.
         for g, kv in cache1.items():
             for key, t in kv.items():
                 self.cache[g][key][:, slot] = t[:, 0]

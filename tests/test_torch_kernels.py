@@ -178,4 +178,5 @@ def test_library_name_follows_the_source(tmp_path):
     assert first.parent == _build.BUILD_DIR and first.name.startswith("k-")
     src.write_text("extern \"C\" int f() { return 1; }\n")
     assert _build.library_path(src) != first
-    assert [p.name for p in _build.sources()] == ["flash_attention.cu", "gather_rows.cu"]
+    assert [p.name for p in _build.sources()] == ["flash_attention.cu", "gather_rows.cu",
+                                                  "ssd.cu"]

@@ -39,13 +39,15 @@ def test_the_port_has_its_files():
     names = {str(f.relative_to(REPO)) for f in FILES}
     for want in ("src/repro_torch/kernels/flash_attention.py",
                  "src/repro_torch/kernels/gather_rows.py",
+                 "src/repro_torch/kernels/ssd.py",
                  "src/repro_torch/models/model.py",
                  "src/repro_torch/models/moe.py",
+                 "src/repro_torch/models/mamba.py",
                  "src/repro_torch/serve/engine.py",
                  "src/repro_torch/launch/serve.py",
                  "chip_smoke.py"):
         assert want in names
-    for cu in ("flash_attention.cu", "gather_rows.cu"):
+    for cu in ("flash_attention.cu", "gather_rows.cu", "ssd.cu"):
         assert (PORT / "kernels" / "csrc" / cu).is_file()
 
 

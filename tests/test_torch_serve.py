@@ -1,11 +1,15 @@
 """The port's model and serving engine against the JAX package's.
 
-Reduced glm4-9b (dense) and reduced moonshot-v1-16b-a3b (MoE, 4 experts,
-top-2, a shared expert), each with four layers, so that each of the two
-layer groups stacks two. The JAX init draws the weights from one key;
+Reduced glm4-9b (dense), reduced moonshot-v1-16b-a3b (MoE, 4 experts,
+top-2, a shared expert) and reduced mamba2-1.3b (SSD layers: 8 heads of 16,
+state 16, chunk 32), each with four layers, so that each of the two layer
+groups stacks two. The JAX init draws the weights from one key;
 ``params_from_jax`` carries them into the port. The JAX side runs the
 Pallas attention kernel in interpret mode; the port runs on the CPU, where
-every kernel is its plain version.
+every kernel is its plain version. The JAX mamba2 model runs with
+``interpret=False``: on the CPU its SSD scan is then ``ssd_ref``, which
+takes ``x * dt`` in float32 as the port does, where the Pallas body would
+round it to bfloat16 first and land a bfloat16 ulp away.
 
 The JAX side runs with ``jax.disable_jit()``: compiled, XLA fuses the layer
 scan and drops some of the bf16 roundings that the model's code writes
@@ -44,13 +48,14 @@ def _seeded_init(jmodel, key):
     from one test process to the next."""
     params = jmodel.init(key)
     for gi, g in enumerate(jmodel.groups):
-        assert g.kind in ("attn_mlp", "attn_moe"), g.kind
+        assert g.kind in ("attn_mlp", "attn_moe", "ssd"), g.kind
         keys = jax.random.split(jax.random.fold_in(key, 1000 + gi), g.n_layers)
         params[g.name] = {"layers": jax.vmap(lambda r: jmodel._layer_init(r, g.kind))(keys)}
     return params
 
 
-ARCHS = {"glm4-9b": "attn_mlp", "moonshot-v1-16b-a3b": "attn_moe"}  # arch: group kind
+ARCHS = {"glm4-9b": "attn_mlp", "moonshot-v1-16b-a3b": "attn_moe",
+         "mamba2-1.3b": "ssd"}  # arch: group kind
 
 
 @pytest.fixture(scope="module", params=list(ARCHS))
@@ -58,7 +63,7 @@ def pair(request):
     """(JAX cfg, plan, model, params; port cfg, plan, state dict)."""
     jcfg = dataclasses.replace(jget_arch(request.param).reduced(), n_layers=4)
     jplan = janalysis.build_plan(jcfg, None, n_groups=2)
-    jmodel = JModel(jcfg, jplan, interpret=True)
+    jmodel = JModel(jcfg, jplan, interpret=ARCHS[request.param] != "ssd")
     params = _seeded_init(jmodel, jax.random.key(0))
     tcfg = dataclasses.replace(get_arch(request.param).reduced(), n_layers=4)
     tplan = analysis.build_plan(tcfg, None, n_groups=2)
@@ -82,11 +87,38 @@ def test_params_from_jax_carries_every_weight(pair):
     _, _, jmodel, params, tcfg, tplan, state = pair
     model = Model(tcfg, tplan, device="cpu", params=state)  # strict load
     got = model.state_dict()
-    np.testing.assert_array_equal(
-        got["g1.layers.1.attn.wq"].float().numpy(),
-        np.asarray(params["g1"]["layers"]["attn"]["wq"][1].astype(jnp.bfloat16), np.float32))
-    assert got["g0.layers.0.norm_attn.scale"].dtype == torch.float32
-    assert got["unembed.kernel"].dtype == torch.bfloat16
+    assert got["final_norm.scale"].dtype == torch.float32
+    if tcfg.ssm is None:
+        np.testing.assert_array_equal(
+            got["g1.layers.1.attn.wq"].float().numpy(),
+            np.asarray(params["g1"]["layers"]["attn"]["wq"][1].astype(jnp.bfloat16), np.float32))
+        assert got["g0.layers.0.norm_attn.scale"].dtype == torch.float32
+        assert got["unembed.kernel"].dtype == torch.bfloat16
+    else:
+        assert "unembed.kernel" not in got  # tied embeddings
+    # Every SSD leaf: its name, its shape and its dtype. The six small
+    # leaves that the reference reads in float32 stay float32, exactly.
+    ssd = {key: (tuple(t.shape), t.dtype) for key, t in got.items() if ".ssd." in key}
+    want_ssd = {}
+    if tcfg.ssm is not None:
+        bf, f32 = torch.bfloat16, torch.float32
+        d, N, W = tcfg.d_model, tcfg.ssm.state_dim, tcfg.ssm.conv_width
+        inner = tcfg.ssm.expand * d
+        H = inner // tcfg.ssm.head_dim
+        leaves = {"w_z": ((d, inner), bf), "w_x": ((d, inner), bf), "w_bc": ((d, 2 * N), bf),
+                  "w_dt": ((d, H), bf), "conv_x": ((W, inner), f32),
+                  "conv_bc": ((W, 2 * N), f32), "dt_bias": ((H,), f32), "A_log": ((H,), f32),
+                  "Dskip": ((H,), f32), "norm": ((inner,), f32), "w_out": ((inner, d), bf)}
+        want_ssd = {f"{g.name}.layers.{i}.ssd.{leaf}": v for g in jmodel.groups
+                    for i in range(g.n_layers) for leaf, v in leaves.items()}
+        jssd = params["g1"]["layers"]["ssd"]
+        for leaf in ("A_log", "dt_bias", "conv_x", "conv_bc", "norm", "Dskip"):
+            np.testing.assert_array_equal(got[f"g1.layers.1.ssd.{leaf}"].numpy(),
+                                          np.asarray(jssd[leaf][1]))
+        np.testing.assert_array_equal(
+            got["g1.layers.1.ssd.w_x"].float().numpy(),
+            np.asarray(jssd["w_x"][1].astype(jnp.bfloat16), np.float32))
+    assert ssd == want_ssd
     # Every MoE leaf: its name, its shape and its dtype (float32 router).
     moe = {key: (tuple(t.shape), t.dtype) for key, t in got.items() if ".moe." in key}
     want = {}
@@ -121,9 +153,20 @@ def test_forward_logits_at_every_position(pair, rng):
 
 def test_prefill_and_decode_logits(pair, rng):
     """Prefill logits and three decode steps (same tokens fed to both)."""
+    _check_prefill_and_decode(pair, rng, 13)
+
+
+@pytest.mark.parametrize("pair", ["mamba2-1.3b"], indirect=True)
+def test_prefill_over_a_chunk_and_a_padded_tail(pair, rng):
+    """A 45-token prompt is longer than the reduced SSD chunk (32) and not a
+    multiple of it: the scan runs a full chunk and a zero-padded one."""
+    _check_prefill_and_decode(pair, rng, 45)
+
+
+def _check_prefill_and_decode(pair, rng, S):
     _, _, jmodel, params, tcfg, tplan, state = pair
     model = Model(tcfg, tplan, device="cpu", params=state)
-    tokens = rng.integers(0, tcfg.vocab, size=(2, 13)).astype(np.int32)
+    tokens = rng.integers(0, tcfg.vocab, size=(2, S)).astype(np.int32)
     with jax.disable_jit():
         jlog, jcache = jmodel.prefill(params, {"tokens": jnp.asarray(tokens)}, ctx_len=CTX)
     tlog, tcache = model.prefill(torch.from_numpy(tokens).long(), ctx_len=CTX)
@@ -139,22 +182,70 @@ def test_prefill_and_decode_logits(pair, rng):
     assert tlog.dtype == torch.float32 and tlog.shape == (2, model.vp)
 
 
+def _reference_serve(jmodel, params, prompts, slots, max_new):
+    """The JAX engine's schedule driven by hand over the reference's
+    ``Model.prefill`` and ``Model.decode_step``: fill free slots in order,
+    one batched decode step a tick, a request done at ``max_new`` tokens.
+    Each prefill's cache is written into its slot along axis 1, the batch
+    axis of every stacked cache leaf. (The JAX engine writes along axis
+    ``ndim - 4``, which for the 4-D conv caches of an SSD model is the layer
+    axis, so it cannot serve one.) Returns [(request id, tokens)] in the
+    order the requests finish."""
+    V = jmodel.cfg.vocab
+    cache = jmodel.init_cache(slots, CTX)
+    queue = list(enumerate(prompts))
+    slot_req = [None] * slots
+    pos = np.zeros((slots,), np.int32)
+    last = np.zeros((slots,), np.int32)
+    done = []
+    while queue or any(r is not None for r in slot_req):
+        for s in range(slots):
+            if slot_req[s] is None and queue:
+                rid, prompt = queue.pop(0)
+                logits, c1 = jmodel.prefill(params, {"tokens": jnp.asarray(prompt[None])},
+                                            ctx_len=CTX)
+                cache = jax.tree.map(lambda full, one: full.at[:, s:s + 1].set(one), cache, c1)
+                slot_req[s] = (rid, [int(jnp.argmax(logits[0, :V]))])
+                pos[s], last[s] = len(prompt), slot_req[s][1][0]
+        logits, cache = jmodel.decode_step(params, cache, jnp.asarray(last[:, None]),
+                                           jnp.asarray(pos[:, None]))
+        nxt = np.asarray(jnp.argmax(logits[:, :V], axis=-1), np.int32)
+        for s in range(slots):
+            if slot_req[s] is None:
+                continue
+            slot_req[s][1].append(int(nxt[s]))
+            pos[s] += 1
+            last[s] = nxt[s]
+            if len(slot_req[s][1]) >= max_new or pos[s] >= CTX - 1:
+                done.append(slot_req[s])
+                slot_req[s] = None
+    return done
+
+
 def test_engine_greedy_tokens_match(pair):
     """3 requests over 2 slots, prompts of 8-24 tokens, 6 new tokens each:
-    the port's engine gives the JAX engine's greedy tokens, token for token."""
-    jcfg, jplan, _, params, tcfg, tplan, state = pair
+    the port's engine gives the JAX engine's greedy tokens, token for token.
+    For the SSD model, which the JAX engine cannot serve, the reference is
+    its ``Model.prefill`` and ``Model.decode_step`` on the engine's slot
+    schedule (``_reference_serve``)."""
+    jcfg, jplan, jmodel, params, tcfg, tplan, state = pair
     lens = np.random.default_rng(1).integers(8, 25, size=3)
     prompts = [np.random.default_rng(2 + i).integers(0, tcfg.vocab, size=n).astype(np.int32)
                for i, n in enumerate(lens)]
-    jeng = jengine.Engine(jcfg, jplan, params, jengine.ServeConfig(slots=2, ctx_len=CTX),
-                          interpret=True)
     teng = tengine.Engine(tcfg, tplan, state, tengine.ServeConfig(slots=2, ctx_len=CTX),
                           device="cpu")
     for i, p in enumerate(prompts):
-        jeng.submit(jengine.Request(request_id=i, prompt=p, max_new_tokens=6))
         teng.submit(tengine.Request(request_id=i, prompt=p, max_new_tokens=6))
-    with jax.disable_jit():
-        want = [(r.request_id, r.output) for r in jeng.run_until_done()]
+    if ARCHS[tcfg.name] == "ssd":
+        with jax.disable_jit():
+            want = _reference_serve(jmodel, params, prompts, slots=2, max_new=6)
+    else:
+        jeng = jengine.Engine(jcfg, jplan, params, jengine.ServeConfig(slots=2, ctx_len=CTX),
+                              interpret=True)
+        for i, p in enumerate(prompts):
+            jeng.submit(jengine.Request(request_id=i, prompt=p, max_new_tokens=6))
+        with jax.disable_jit():
+            want = [(r.request_id, r.output) for r in jeng.run_until_done()]
     got = [(r.request_id, r.output) for r in teng.run_until_done()]
     assert got == want
     assert all(len(out) == 6 for _, out in got)
@@ -182,7 +273,7 @@ def test_launcher_serves_on_the_cpu_when_asked(arch):
     assert stats["peak_mem_gb"] is None  # read only on a CUDA device
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "gemma2-27b"])
 def test_unported_group_kinds_raise(arch):
     cfg = get_arch(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
